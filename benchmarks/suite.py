@@ -29,14 +29,9 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_bench_cache")
+from xugrid_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
 
-import jax
-
-jax.config.update(
-    "jax_compilation_cache_dir",
-    os.environ.get("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_bench_cache"),
-)
+enable_compile_cache()
 
 SMALL = os.environ.get("BENCH_SMALL") == "1"
 XL = os.environ.get("BENCH_XL") == "1"

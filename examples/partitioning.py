@@ -1,6 +1,6 @@
 """
 Partitioning & multi-chip sharding (reference: examples/partitioning.py,
-plus the TPU-native mesh-sharded execution that replaces the reference's
+plus the mesh-sharded execution that replaces the reference's
 offline MPI-partition merges).
 
 Run with virtual devices to see the multi-chip path on CPU:

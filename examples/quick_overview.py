@@ -1,7 +1,7 @@
 """
 Quick overview: open, select, plot (reference: examples/quick_overview.py).
 
-Runs on CPU or TPU; writes a UGRID NetCDF file, reads it back, and
+Runs on CPU or GPU; writes a UGRID NetCDF file, reads it back, and
 makes topology-aware selections.
 """
 

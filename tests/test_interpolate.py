@@ -2,7 +2,7 @@
 Interpolation test suite: Laplace (Jacobi-CG / direct) and nearest fill.
 
 Mirrors reference tests/test_interpolate.py scenarios. The reference's
-sequential ILU0 preconditioner is TPU-hostile and is replaced by a
+sequential ILU0 preconditioner is inherently serial and is replaced by a
 Jacobi-preconditioned CG (xugrid_tpu/ugrid/interpolate.py); the tests
 therefore assert numerics against the direct solve, not the ILU0 path.
 """
@@ -229,75 +229,6 @@ class TestChebyshevPreconditioner:
         np.testing.assert_allclose(pcg, direct, atol=1e-6)
 
 
-def test_windowed_cg_matches_coo(monkeypatch):
-    """The TPU windowed-matvec CG formulation reproduces the CPU COO
-    formulation (and the direct solve) on the same problem."""
-    import scipy.sparse
-
-    n_side = 24
-    n = n_side * n_side
-    idx = np.arange(n).reshape(n_side, n_side)
-    r = np.concatenate([idx[:, :-1].ravel(), idx[:-1, :].ravel()])
-    c = np.concatenate([idx[:, 1:].ravel(), idx[1:, :].ravel()])
-    rr = np.concatenate([r, c])
-    cc = np.concatenate([c, r])
-    W = scipy.sparse.coo_matrix(
-        (np.ones(len(rr)), (rr, cc)), shape=(n, n)
-    ).tocsr()
-    rng = np.random.default_rng(12)
-    truth = np.cos(np.linspace(0, 7, n)) * 5.0
-    vals = np.where(rng.random(n) < 0.1, truth, np.nan)
-    data = np.stack([vals, vals + 1.0, vals * 2.0])  # batched RHS
-
-    direct = interpolate.laplace_interpolate(data, W, direct_solve=True)
-    monkeypatch.setenv("XUGRID_TPU_CG", "windowed")
-    win = interpolate.laplace_interpolate(
-        data, W, maxiter=4000, atol=1e-10
-    )
-    monkeypatch.setenv("XUGRID_TPU_CG", "host")
-    coo = interpolate.laplace_interpolate(
-        data, W, maxiter=4000, atol=1e-10
-    )
-    np.testing.assert_allclose(win, direct, atol=1e-6)
-    np.testing.assert_allclose(coo, direct, atol=1e-6)
-
-
-@pytest.mark.parametrize("engine", ["stream", "dense", "aligned"])
-def test_gather_cg_matches_direct(monkeypatch, engine):
-    """The Pallas gather CG (interpret mode on CPU) reproduces the
-    direct solve to f32 accuracy, for each gather engine.  The DIA
-    stencil path must be disabled explicitly: it would otherwise claim
-    this banded graph before the gather dispatch is reached."""
-    import scipy.sparse
-
-    n_side = 24
-    n = n_side * n_side
-    idx = np.arange(n).reshape(n_side, n_side)
-    r = np.concatenate([idx[:, :-1].ravel(), idx[:-1, :].ravel()])
-    c = np.concatenate([idx[:, 1:].ravel(), idx[1:, :].ravel()])
-    rr = np.concatenate([r, c])
-    cc = np.concatenate([c, r])
-    W = scipy.sparse.coo_matrix(
-        (np.ones(len(rr)), (rr, cc)), shape=(n, n)
-    ).tocsr()
-    rng = np.random.default_rng(12)
-    truth = np.cos(np.linspace(0, 7, n)) * 5.0
-    vals = np.where(rng.random(n) < 0.1, truth, np.nan)
-    data = np.stack([vals, vals + 1.0, vals * 2.0])
-
-    direct = interpolate.laplace_interpolate(data, W, direct_solve=True)
-    monkeypatch.setenv("XUGRID_TPU_CG", "windowed")
-    monkeypatch.setenv("XUGRID_TPU_CG_GATHER", "force")
-    monkeypatch.setenv("XUGRID_TPU_CG_DIA", "0")
-    monkeypatch.setenv("XUGRID_TPU_GATHER_ENGINE", engine)
-    interpolate._PCG_GATHER = None
-    interpolate._GATHER_PLANS.clear()
-    got = interpolate.laplace_interpolate(data, W, maxiter=4000, atol=1e-10)
-    interpolate._PCG_GATHER = None
-    interpolate._GATHER_PLANS.clear()
-    np.testing.assert_allclose(got, direct, atol=5e-5)
-
-
 def test_interpolate_na_batches_matching_slices(monkeypatch):
     """interpolate_na over a time dimension whose slices share one NaN
     pattern must issue ONE batched Laplace solve (right-hand sides on
@@ -345,39 +276,12 @@ def test_interpolate_na_batches_matching_slices(monkeypatch):
     assert np.isfinite(np.asarray(out2.data)).all()
 
 
-def test_gather_plan_cache_reused_across_solves(monkeypatch):
-    """Repeated CG solves of the same Laplacian (interpolate_na's
-    per-slice fallback, or chunked applies) must reuse the cached
-    gather plan instead of replanning (plan time dominated the 1M
-    solve before the cache)."""
-    monkeypatch.setenv("XUGRID_TPU_CG", "windowed")
-    monkeypatch.setenv("XUGRID_TPU_CG_GATHER", "force")
-    monkeypatch.setenv("XUGRID_TPU_CG_DIA", "0")
-    interpolate._GATHER_PLANS.clear()
-    conn = _grid_adjacency(14, 14)
-    n = conn.shape[0]
-    rng = np.random.default_rng(4)
-    data = rng.normal(size=n)
-    data[rng.random(n) < 0.3] = np.nan
-    out1 = interpolate.laplace_interpolate(data, conn, atol=1e-8)
-    assert len(interpolate._GATHER_PLANS) == 1
-    out2 = interpolate.laplace_interpolate(data, conn, atol=1e-8)
-    assert len(interpolate._GATHER_PLANS) == 1  # cache hit, no replan
-    np.testing.assert_allclose(out1, out2)
-    interpolate._GATHER_PLANS.clear()
-
-
 def test_multi_rhs_batches_one_gather_solve(monkeypatch):
     """A 2-D stack of time slices sharing one NaN pattern must ride
-    ONE planned gather-CG solve with the right-hand sides batched on
-    the sublane axis — not E sequential solves (VERDICT r3 item 8;
-    reference: interpolate_na broadcasting via dask='parallelized',
-    /root/reference/xugrid/ugrid/interpolate.py:333-351)."""
-    monkeypatch.setenv("XUGRID_TPU_CG", "windowed")
-    monkeypatch.setenv("XUGRID_TPU_CG_GATHER", "force")
+    ONE CG solve with the right-hand sides batched — not E sequential
+    solves (reference: interpolate_na broadcasting via
+    dask='parallelized', xugrid/ugrid/interpolate.py:333-351)."""
     monkeypatch.setenv("XUGRID_TPU_CG_DIA", "0")
-    monkeypatch.setenv("XUGRID_TPU_GATHER_ENGINE", "aligned")
-    interpolate._GATHER_PLANS.clear()
 
     calls = []
     real_cg = interpolate.cg_solve
@@ -399,9 +303,8 @@ def test_multi_rhs_batches_one_gather_solve(monkeypatch):
     out = interpolate.laplace_interpolate(
         stack, conn, direct_solve=False, atol=1e-9
     )
-    # One solve carrying all 6 RHS, one cached plan.
+    # One solve carrying all 6 RHS.
     assert calls == [6]
-    assert len(interpolate._GATHER_PLANS) == 1
     # Laplace is linear: slice k must equal scales[k] * slice 0.
     single = interpolate.laplace_interpolate(
         stack[0], conn, direct_solve=False, atol=1e-9
@@ -409,9 +312,6 @@ def test_multi_rhs_batches_one_gather_solve(monkeypatch):
     for k, s in enumerate(scales):
         np.testing.assert_allclose(out[k], single * s, rtol=1e-5,
                                    atol=1e-6)
-    # ... and the repeat solve reused the plan (no replanning).
-    assert len(interpolate._GATHER_PLANS) == 1
-    interpolate._GATHER_PLANS.clear()
 
 
 def _grid_adjacency(nx, ny, drop_frac=0.0, seed=0):
@@ -581,17 +481,12 @@ class TestDiaStencilSolve:
 
 
 def test_prep_and_device_caches_correct_across_data_changes(monkeypatch):
-    """The round-5 content-keyed caches (system extraction/RCM in
-    laplace_interpolate, padded-window packing + device plan tables in
-    cg_solve) must be transparent: a second solve with DIFFERENT data
-    on the SAME matrix/NaN pattern hits every cache and still matches
-    the direct solve, and changing the matrix must miss (no
+    """The content-keyed cache of laplace_interpolate (system
+    extraction/RCM) must be transparent: a second solve with DIFFERENT
+    data on the SAME matrix/NaN pattern hits the cache and still
+    matches the direct solve, and changing the matrix must miss (no
     collisions)."""
-    monkeypatch.setenv("XUGRID_TPU_CG", "windowed")
-    monkeypatch.setenv("XUGRID_TPU_CG_GATHER", "force")
     monkeypatch.setenv("XUGRID_TPU_CG_DIA", "0")
-    monkeypatch.setenv("XUGRID_TPU_GATHER_ENGINE", "aligned")
-    interpolate._GATHER_PLANS.clear()
     interpolate._LAPLACE_PREP.clear()
 
     conn = _grid_adjacency(13, 13)
@@ -607,7 +502,6 @@ def test_prep_and_device_caches_correct_across_data_changes(monkeypatch):
     data2[nanmask] = np.nan
     out2 = interpolate.laplace_interpolate(data2, conn, atol=1e-10)
     assert len(interpolate._LAPLACE_PREP) == 1          # prep hit
-    assert len(interpolate._GATHER_PLANS) == 1          # plan hit
     ref2 = interpolate.laplace_interpolate(
         data2, conn, direct_solve=True
     )
@@ -624,5 +518,4 @@ def test_prep_and_device_caches_correct_across_data_changes(monkeypatch):
         data2, conn3, direct_solve=True
     )
     np.testing.assert_allclose(out3, ref3, atol=1e-5)
-    interpolate._GATHER_PLANS.clear()
     interpolate._LAPLACE_PREP.clear()

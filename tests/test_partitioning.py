@@ -3,7 +3,7 @@ Partitioning & partition-merge test suite.
 
 Mirrors the reference test strategy (reference tests/test_partitioning.py:
 label/partition round-trips, multi-topology merges, validation errors)
-against the TPU build's SFC partitioner and sort-based merge kernels
+against this build's SFC partitioner and sort-based merge kernels
 (xugrid_tpu/ugrid/partitioning.py).
 """
 

@@ -175,7 +175,7 @@ class TestAllCombinations:
 
 class TestExtraDimensions:
     def test_time_layer_broadcast(self, source_kind):
-        # Extra (time, layer) dims ride the lane-packed apply.
+        # Extra (time, layer) dims ride the minor axis of the apply.
         rng = np.random.default_rng(8)
         mids = np.arange(NX) + 0.5
         yy, xx = np.meshgrid(mids, mids, indexing="ij")

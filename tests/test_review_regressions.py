@@ -470,95 +470,6 @@ class TestRound3ReviewFindings:
             verts[:, 0] + jit[:, 0], verts[:, 1] + jit[:, 1], -1, faces
         )
 
-    def test_cg_gather_handles_stream_plan(self, monkeypatch):
-        # cg_solve's gather branch crashed with AttributeError on
-        # StreamPlan (no .npk).  DEFAULT_ENGINE is "aligned" since r3,
-        # so the scenario must be pinned via the engine env var.
-        monkeypatch.setenv("XUGRID_TPU_CG", "windowed")
-        monkeypatch.setenv("XUGRID_TPU_CG_GATHER", "force")
-        monkeypatch.setenv("XUGRID_TPU_CG_DIA", "0")
-        monkeypatch.setenv("XUGRID_TPU_GATHER_ENGINE", "stream")
-        from xugrid_tpu.regrid.gather_apply import StreamPlan, plan_default
-        from xugrid_tpu.ugrid.interpolate import laplace_interpolate
-
-        grid = self._jittered_quads()
-        conn = grid.face_face_connectivity
-        rng = np.random.default_rng(1)
-        data = rng.normal(size=grid.n_face)
-        data[rng.random(grid.n_face) < 0.5] = np.nan
-
-        # The scenario only bites when the default plan IS a StreamPlan.
-        from xugrid_tpu.core.sparse import MatrixCSR, PaddedCSR
-
-        coo = conn.tocoo()
-        padded = PaddedCSR.from_csr(
-            MatrixCSR.from_triplet(
-                coo.row, coo.col, coo.data.astype(np.float64),
-                n=conn.shape[0], m=conn.shape[1],
-            )
-        )
-        assert isinstance(
-            plan_default(padded.indices, padded.weights), StreamPlan
-        )
-
-        out = laplace_interpolate(data, conn, direct_solve=False)
-        known = ~np.isnan(data)
-        assert not np.isnan(out).any()
-        np.testing.assert_allclose(out[known], data[known])
-
-    def test_cg_gather_handles_aligned_plan(self, monkeypatch):
-        # Same scenario as above for the r3 default engine: the CG
-        # matvec must accept an AlignedPlan (plan/apply protocol, not
-        # packet-count attributes).
-        monkeypatch.setenv("XUGRID_TPU_CG", "windowed")
-        monkeypatch.setenv("XUGRID_TPU_CG_GATHER", "force")
-        monkeypatch.setenv("XUGRID_TPU_CG_DIA", "0")
-        monkeypatch.setenv("XUGRID_TPU_GATHER_ENGINE", "aligned")
-        from xugrid_tpu.regrid.aligned_apply import plan_gather_aligned
-        from xugrid_tpu.ugrid.interpolate import laplace_interpolate
-
-        grid = self._jittered_quads()
-        conn = grid.face_face_connectivity
-        rng = np.random.default_rng(1)
-        data = rng.normal(size=grid.n_face)
-        data[rng.random(grid.n_face) < 0.5] = np.nan
-
-        from xugrid_tpu.core.sparse import MatrixCSR, PaddedCSR
-
-        coo = conn.tocoo()
-        padded = PaddedCSR.from_csr(
-            MatrixCSR.from_triplet(
-                coo.row, coo.col, coo.data.astype(np.float64),
-                n=conn.shape[0], m=conn.shape[1],
-            )
-        )
-        assert plan_gather_aligned(padded.indices, padded.weights) is not None
-
-        out = laplace_interpolate(data, conn, direct_solve=False)
-        known = ~np.isnan(data)
-        assert not np.isnan(out).any()
-        np.testing.assert_allclose(out[known], data[known])
-
-    def test_pallas_method_gate_accepts_min_max(self, monkeypatch):
-        # min/max were rejected by the PALLAS_METHODS gate, so
-        # apply_weights never routed them to the gather kernel.
-        import jax
-
-        from xugrid_tpu.regrid import reduce
-        from xugrid_tpu.regrid.apply import _pallas_method
-
-        monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-        src = np.ones((4, 16), np.float32)
-        for reduction, name in (
-            (reduce.minimum, "min"),
-            (reduce.maximum, "max"),
-            (reduce.max_overlap, "max_overlap"),
-            (reduce.mean, "mean"),
-        ):
-            method, has_nan = _pallas_method(reduction, src)
-            assert method == name
-            assert has_nan is False
-
     def test_grid_hash_excludes_nan_y_boxes(self):
         # A box with finite x but NaN y slipped past the width-only
         # finiteness check into the native binning (NaN→int cast UB).
@@ -680,7 +591,14 @@ class TestDiaSelectReviewFindings:
         assert np.abs(got[hole] - truth[hole]).max() < 1.5e-3
 
     def test_select_rejects_inf_sources(self):
-        from xugrid_tpu.regrid.select_apply import apply_windowed_select
+        # Infinite sources must not poison whole windows beyond what the
+        # reference reduction itself gives: the apply path returns
+        # exactly the reference reduction.
+        import jax.numpy as jnp
+
+        from xugrid_tpu.core.sparse import PaddedCSR
+        from xugrid_tpu.regrid import reduce as reductions
+        from xugrid_tpu.regrid.apply import apply_weights
 
         rng = np.random.default_rng(0)
         n, m, w = 700, 900, 5
@@ -691,44 +609,22 @@ class TestDiaSelectReviewFindings:
         weights = np.ones((n, w), np.float32)
         source = rng.normal(size=(2, m)).astype(np.float32)
         source[0, 5] = np.inf
-        out = apply_windowed_select(
-            source, indices, weights, "median", interpret=True
+        got = apply_weights(
+            PaddedCSR(indices, weights, n, m, w), source,
+            reductions.median, n,
         )
-        assert out is None  # falls back rather than NaN-poisoning
-
-    def test_select_plan_records_rows_per_step(self):
-        from xugrid_tpu.regrid import reduce as reductions
-        from xugrid_tpu.regrid.select_apply import (
-            apply_windowed_select,
-            plan_gather_select,
-        )
-
-        rng = np.random.default_rng(4)
-        n, m, w = 600, 800, 4
-        base = (np.arange(n) * m) // n
-        indices = np.clip(
-            base[:, None] + rng.integers(-4, 5, (n, w)), 0, m - 1
-        ).astype(np.int32)
-        weights = rng.uniform(0.5, 1.5, (n, w)).astype(np.float32)
-        source = rng.normal(size=(3, m)).astype(np.float32)
-        plan = plan_gather_select(indices, weights, rows_per_step=8)
-        assert plan is not None and plan.rows == 8
-        got = apply_windowed_select(
-            source, indices, weights, "median", plan=plan, interpret=True
-        )
-        import jax.numpy as jnp
-
         vals = source[:, indices]
-        vals = np.where((indices < 0)[None], np.nan, vals)
         want = np.asarray(reductions.median(
             jnp.asarray(np.moveaxis(vals, 0, 1)),
             jnp.asarray(weights[:, None, :]),
-        ))
-        np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-5)
+        )).T
+        np.testing.assert_array_equal(got, want)
+        assert np.isfinite(got[1]).all()  # the inf-free slice
 
     def test_select_percentile_gate_matches_reference(self):
+        from xugrid_tpu.core.sparse import PaddedCSR
         from xugrid_tpu.regrid import reduce as reductions
-        from xugrid_tpu.regrid.select_apply import apply_windowed_select
+        from xugrid_tpu.regrid.apply import apply_weights
 
         # One valid entry with weight 0 plus a positive weight on an
         # invalid slot: reference percentile gates on the RAW max weight
@@ -743,8 +639,9 @@ class TestDiaSelectReviewFindings:
         indices[13, 1:] = -1
         weights[13] = [0.0, 2.0, 0.0, 0.0]
         source = rng.normal(size=(2, m)).astype(np.float32)
-        got = apply_windowed_select(
-            source, indices, weights, "median", interpret=True
+        got = apply_weights(
+            PaddedCSR(indices, weights, n, m, w), source,
+            reductions.median, n,
         )
         import jax.numpy as jnp
 
@@ -755,7 +652,7 @@ class TestDiaSelectReviewFindings:
             jnp.asarray(weights[:, None, :]),
         ))
         assert np.isfinite(want[13]).all()
-        np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-5)
+        np.testing.assert_allclose(got, want.T, rtol=2e-5, atol=1e-5)
 
 
 import contextlib

@@ -1,6 +1,6 @@
 """
 Sparse container tests: MatrixCOO/MatrixCSR triplet round-trips and the
-TPU-specific PaddedCSR dense-window layout (reference strategy:
+device-side PaddedCSR dense-window layout (reference strategy:
 tests/test_sparse.py).
 """
 

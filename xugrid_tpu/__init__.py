@@ -1,8 +1,8 @@
 """
-xugrid_tpu: a TPU-native framework for 1D network and 2D unstructured-grid
+xugrid_tpu: a JAX framework for 1D network and 2D unstructured-grid
 (UGRID conventions) data.
 
-Capability-parity rebuild of Deltares/xugrid on JAX/XLA/Pallas:
+Capability-parity rebuild of Deltares/xugrid on JAX/XLA:
 topologies are padded dense int arrays; the spatial index is a flat BVH
 with batched jitted queries; regridders build sparse weights on device and
 apply them as fused gather + window-reduction kernels; partitioning maps

@@ -28,8 +28,8 @@ FILL_VALUE: int = -1
 IntDType = np.int64
 FloatDType = np.float64
 
-# Device dtypes (JAX). int32 indices: TPUs have no native int64 ALU path,
-# and 2^31 faces is far beyond a single chip's HBM anyway.
+# Device dtypes (JAX). int32 indices: half the index bytes of int64, and
+# 2^31 faces is far beyond one device's memory anyway.
 DeviceIntDType = np.int32
 DeviceFloatDType = np.float32
 

@@ -353,7 +353,7 @@ class UgridDataArrayAccessor(AbstractUgridAccessor):
         Iterative path is a jit-compiled conjugate-gradient solve with a
         degree-``precondition_degree`` Chebyshev polynomial of the
         Jacobi-scaled operator as preconditioner (1 = plain Jacobi;
-        TPU-friendly — the reference's sequential ILU0 is inherently
+        fully parallel — the reference's sequential ILU0 is inherently
         serial, dataarray_accessor.py:805-886, interpolate.py:30-114).
         ``delta``/``relax`` are accepted for API parity.
         """

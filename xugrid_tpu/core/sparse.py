@@ -5,9 +5,8 @@ Sparse weight-matrix containers for regridding.
 xugrid/core/sparse.py:22-158).  The device-side form is ``PaddedCSR``:
 every target row padded to the maximum neighbor count, giving the
 static-shape (n_target, w_max) gather windows that the jitted apply
-kernels consume — a dense-window layout tailor-made for TPU vector
-units (no per-row loops, every reduction is a vectorized op over the
-trailing axis).
+kernels consume — a dense-window layout with no per-row loops, where
+every reduction is a vectorized op over the trailing axis.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
 """
-Multi-chip execution: mesh sharding of UGRID face data.
+Multi-device execution: mesh sharding of UGRID face data.
 
 This is the framework's "distributed communication backend" (SURVEY.md
 §2.10, §5): where the reference merges MPI-partitioned files offline,
@@ -9,7 +9,7 @@ here the face dimension itself is sharded across a
 * faces are ordered along the Hilbert curve (the same ordering the
   partitioner uses) so each device holds a spatially compact block;
 * regrid apply shards target rows per device and all-gathers the source
-  values over ICI;
+  values between devices;
 * stencil/smoothing ops exchange halo values with ``ppermute``
   neighbor passes instead of re-gathering everything.
 """
@@ -111,7 +111,7 @@ class ShardedRegrid:
 
     * ``"halo"``: a :class:`NeighborExchangePlan` moves only the
       deduplicated remote source rows each device's windows reference —
-      ONE ``all_to_all`` over ICI, O(perimeter) bytes when source and
+      ONE ``all_to_all``, O(perimeter) bytes when source and
       target orderings are spatially aligned (Hilbert / raster order).
     * ``"allgather"``: gather the full source field — O(m) bytes, the
       right call when remote references are dense.
@@ -166,7 +166,7 @@ class ShardedRegrid:
             if method == "halo" or 2 * n_devices * plan.R < self.m_padded:
                 self.plan = plan
         self.method = "halo" if self.plan is not None else "allgather"
-        #: ICI payload per f32 apply (informational, for scale checks).
+        #: exchange payload per f32 apply (informational, for scale checks).
         self.exchanged_bytes = (
             self.plan.exchanged_bytes_f32
             if self.plan is not None
@@ -210,7 +210,7 @@ class ShardedRegrid:
                 check_rep=False,
             )
             def _apply(source_local, idx_local, w_local):
-                # One collective: gather the full source over ICI.
+                # One collective: gather the full source.
                 source_full = jax.lax.all_gather(
                     source_local, axis_name, tiled=True
                 )
@@ -268,8 +268,8 @@ class ShardedRegrid:
 def halo_exchange(mesh: Mesh, axis: str, local: jax.Array, halo: int):
     """
     Ring halo exchange inside a shard_map region: returns the local
-    block extended with ``halo`` rows from both neighbors (ppermute over
-    ICI).  For use inside shard_map-decorated functions.
+    block extended with ``halo`` rows from both neighbors (ppermute).
+    For use inside shard_map-decorated functions.
     """
     if halo <= 0:
         return local
@@ -299,7 +299,7 @@ class NeighborExchangePlan:
     device, local slot) and deduplicated into fixed-size per-device-pair
     send lists — all with vectorized sort/group-by, no Python loops over
     references.  At run time ONE ``all_to_all`` moves exactly the
-    referenced rows over ICI — no full-field all-gather.  With
+    referenced rows — no full-field all-gather.  With
     Hilbert-ordered faces (``partition_order``) the remote fraction is
     the block perimeter, so the exchanged volume is O(sqrt(block)) per
     device.
@@ -386,7 +386,7 @@ class NeighborExchangePlan:
         self.R = R
         self.n_remote = int(is_remote.sum())
         self.n_unique_remote = int(len(uniq))
-        #: bytes moved over ICI per exchange of a (n,) f32 field
+        #: bytes moved between devices per exchange of a (n,) f32 field
         #: (all_to_all payload, send+recv counted once).
         self.exchanged_bytes_f32 = n_devices * n_devices * R * 4
         row_sharding = NamedSharding(mesh, P(self.axis, None))
@@ -428,8 +428,8 @@ def sharded_laplace_smooth(
     neighbor_indices: (n_face, k) global face indices (-1 padded).
 
     method="halo" (default) exchanges only the referenced boundary rows
-    per step via a precomputed NeighborExchangePlan (one ``all_to_all``
-    over ICI); method="allgather" gathers the full field — simpler, and
+    per step via a precomputed NeighborExchangePlan (one ``all_to_all``);
+    method="allgather" gathers the full field — simpler, and
     the right call when remote references are dense.
     """
     axis = axis or mesh.axis_names[0]
@@ -558,7 +558,9 @@ def sharded_cg_solve(
             return diag_l * v_l + jnp.sum(w_l * neigh, axis=1)
 
         def pdot(u_l, v_l):
-            return jax.lax.psum(jnp.vdot(u_l, v_l), axis)
+            # HIGHEST: an f32 dot may otherwise run in TF32 on the GPU.
+            local = jnp.vdot(u_l, v_l, precision=jax.lax.Precision.HIGHEST)
+            return jax.lax.psum(local, axis)
 
         minv = jnp.where(diag_l != 0.0, 1.0 / diag_l, 1.0)
         r = b_l - matvec(x_l)

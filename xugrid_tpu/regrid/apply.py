@@ -4,23 +4,20 @@ The regrid apply kernel: weights × source values → target values.
 This is the hot loop of the framework (reference: the numba
 ``prange``-parallel CSR row loop, xugrid/regrid/regridder.py:34-69).
 
-TPU-first design, two layers:
+Design, two layers, both plain XLA:
 
 * PaddedCSR dense windows turn the ragged CSR loop into one gather plus
   a vectorized reduction over the window axis — no data-dependent
   control flow.
 * **Slice-minor layout**: the extra (time/layer) dimension is placed on
-  the minor (lane) axis, so each gathered element is a contiguous row of
-  all slices.  XLA TPU lowers scalar gathers lane-serially; row gathers
-  stream at HBM bandwidth.  Measured ~10x over the slice-major layout
-  at 1M faces x 20 slices.  Small slice counts are padded up to a
-  multiple of 8 lanes (the padding cost is recovered by the row-gather
-  efficiency).
+  the minor axis, so each gathered element is a contiguous row of all
+  slices (one row gather per window entry instead of one scalar gather
+  per entry and slice).  Small slice counts are padded up to a
+  multiple of 8.
 """
 
 from __future__ import annotations
 
-import os
 from functools import partial
 
 import jax
@@ -29,12 +26,9 @@ import numpy as np
 
 from xugrid_tpu.core.sparse import PaddedCSR
 
-#: sentinel distinguishing "never planned" from a rejected (None) plan.
-_REJECTED = object()
-
 
 def _pad_minor(n_extra: int) -> int:
-    """Lane padding: at least 8, multiples of 8, full 128 when close."""
+    """Minor-axis padding: at least 8, multiples of 8, full 128 when close."""
     if n_extra >= 96:
         return -(-n_extra // 128) * 128
     return max(8, -(-n_extra // 8) * 8)
@@ -66,145 +60,17 @@ def _apply_coo_gather_T(sourceT, row, col, n_target):
     return out.at[row].set(sourceT[col])
 
 
-def _pallas_method(reduction, source2d):
-    """
-    (method name, has_nan) when the tiled Pallas kernel covers this
-    apply, else (None, None) — fall back to the XLA window-gather path.
-
-    The kernel covers the linear reduction family (mean, sum,
-    conservative/conductance, harmonic/geometric mean) on TPU with a
-    NaN-masked formulation, so NaN-bearing sources stay on the fast
-    path.  It computes in f32; f64 sources are only accepted when x64
-    is disabled (the XLA device path would cast them down identically).
-    Non-NaN non-finite values (inf) cannot ride the masked matmul
-    (0-weight × inf = NaN) and fall back.  XUGRID_TPU_PALLAS=0 disables.
-    """
-    flag = os.environ.get("XUGRID_TPU_PALLAS", "")
-    if flag == "0":
-        return None, None
-    if source2d.shape[0] == 0:
-        # Zero extra rows would build 0-lane Mosaic buffers; the XLA
-        # path pads the lane axis and handles this shape.
-        return None, None
-    from xugrid_tpu.regrid import reduce
-    from xugrid_tpu.regrid.gather_apply import GATHER_METHODS
-
-    by_reduction = {
-        reduce.mean: "mean",
-        reduce.sum: "sum",
-        reduce.first_order_conservative: "first_order_conservative",
-        reduce.harmonic_mean: "harmonic_mean",
-        reduce.geometric_mean: "geometric_mean",
-        # selection pair — covered by the gather-packet kernel only
-        # (the gather engines reject them and fall through to XLA)
-        reduce.minimum: "min",
-        reduce.maximum: "max",
-        # rides the gather kernel's max chain over a plan-side filtered
-        # window (max-weight entries only) — NaN-free sources only
-        reduce.max_overlap: "max_overlap",
-    }
-    method = by_reduction.get(reduction)
-    if method is None or (
-        method != "max_overlap" and method not in GATHER_METHODS
-    ):
-        return None, None
-    if jax.default_backend() != "tpu":
-        return None, None
-    if source2d.dtype != np.float32:
-        x64 = jax.config.read("jax_enable_x64")
-        if source2d.dtype != np.float64 or (x64 and flag != "1"):
-            return None, None
-    # One SIMD pass each: min is NaN iff any NaN; ±inf shows in min/max.
-    has_nan, ok = _finite_scan(source2d)
-    if not ok:
-        return None, None
-    return method, has_nan
-
-
-def _finite_scan(source2d):
-    """(has_nan, ok): ok is False when inf is present (inf cannot ride
-    the masked one-hot matmuls: 0 x inf = NaN)."""
-    mn = source2d.min() if source2d.size else np.float64(0.0)
-    mx = source2d.max() if source2d.size else np.float64(0.0)
-    has_nan = bool(np.isnan(mn))
-    if not has_nan and (np.isinf(mn) or np.isinf(mx)):
-        return has_nan, False
-    if has_nan and (
-        np.isinf(np.nanmin(source2d)) or np.isinf(np.nanmax(source2d))
-    ):
-        return has_nan, False
-    return has_nan, True
-
-
-def _select_method(reduction, source2d):
-    """
-    (method name, has_nan) when the selection Pallas kernel
-    (regrid/select_apply.py) covers this reduction — mode, median, or
-    any percentile closure from ``create_percentile_method`` — else
-    (None, None).  Same TPU/dtype/finiteness gates as the linear
-    family; these reductions otherwise run the lane-serial XLA window
-    gather at ~10x the kernel's time.
-    """
-    flag = os.environ.get("XUGRID_TPU_PALLAS", "")
-    if flag == "0" or source2d.shape[0] == 0:
-        return None, None
-    from xugrid_tpu.regrid import reduce
-
-    if reduction is reduce.mode:
-        name = "mode"
-    elif (
-        getattr(reduction, "__code__", None) is reduce.median.__code__
-    ):
-        # Any percentile closure; __name__ is "p<float>" by contract.
-        name = getattr(reduction, "__name__", "")
-    else:
-        return None, None
-    from xugrid_tpu.regrid.select_apply import covers_method
-
-    if not covers_method(name):
-        return None, None
-    if jax.default_backend() != "tpu":
-        return None, None
-    if source2d.dtype != np.float32:
-        x64 = jax.config.read("jax_enable_x64")
-        if source2d.dtype != np.float64 or (x64 and flag != "1"):
-            return None, None
-    has_nan, ok = _finite_scan(source2d)
-    if not ok:
-        return None, None
-    return name, has_nan
-
-
-def _max_overlap_filter(indices, weights):
-    """Keep only each target's max-weight entries (ties kept: the max
-    chain resolves them to the larger value, matching the reference
-    tie-break).  Targets whose best weight is 0 keep weight-0 entries,
-    so their rwsum stays 0 and the finalize gate yields NaN."""
-    valid = indices >= 0
-    w = np.where(valid, weights, -np.inf)
-    wmax = w.max(axis=1, keepdims=True) if w.size else w
-    keep = valid & (w == wmax)
-    fidx = np.where(keep, indices, -1).astype(indices.dtype)
-    fw = np.where(keep, weights, 0.0).astype(weights.dtype)
-    return fidx, fw
-
-
 def apply_weights(
     weights: PaddedCSR,
     source: np.ndarray,
     reduction,
     target_size: int,
     dtype=None,
-    plan_cache: dict | None = None,
 ):
     """
     Apply regridding weights over the flattened source.
 
-    source: (..., m) array; leading dims are packed onto the lane axis.
-    ``plan_cache`` (a mutable dict owned by the caller, e.g. the
-    regridder) memoizes the Pallas slab plan across chunked/repeated
-    applies of the same weights — host-side planning re-sorts the full
-    window table otherwise.
+    source: (..., m) array; leading dims are packed onto the minor axis.
     Returns (..., n_target) numpy array.
     """
     source = np.asarray(source)
@@ -214,105 +80,6 @@ def apply_weights(
         source2d = source2d.astype(dtype)
     if not np.issubdtype(source2d.dtype, np.floating):
         source2d = source2d.astype(np.float64)
-
-    method, has_nan = _pallas_method(reduction, source2d)
-    if method is not None:
-        # Primary TPU path: the target-aligned banded kernel (covers
-        # the linear family AND min/max), with the scan-engine family
-        # as planning fallbacks and the XLA window gather last.
-        from xugrid_tpu.regrid.gather_apply import (
-            GATHER_METHODS,
-            apply_windowed_gather,
-            plan_default,
-        )
-
-        if method == "max_overlap" and not has_nan:
-            # max_overlap = value of the max-weight source, ties -> the
-            # larger value (reference reduce.py max_overlap).  The
-            # max-weight slots are plan-static: filter the window to
-            # them on the host and run the kernel's plain max chain.
-            # NaN sources fall through to XLA (a NaN at the best-weight
-            # slot must defer to the next-best weight — not static).
-            gplan = _REJECTED
-            if plan_cache is not None:
-                gplan = plan_cache.get("gather_plan_mo", _REJECTED)
-            if gplan is _REJECTED:
-                fidx, fw = _max_overlap_filter(
-                    weights.indices, weights.weights
-                )
-                gplan = plan_default(fidx, fw, for_minmax=True)
-                if plan_cache is not None:
-                    plan_cache["gather_plan_mo"] = gplan
-            if gplan is not None:
-                out = apply_windowed_gather(
-                    source2d.astype(np.float32, copy=False),
-                    weights.indices,
-                    weights.weights,
-                    "max",
-                    has_nan=False,
-                    plan=gplan,
-                )
-                if out is not None:
-                    return out.T.astype(source2d.dtype).reshape(
-                        leading + (target_size,)
-                    )
-
-        if method in GATHER_METHODS:
-            # min/max need a scan-capable plan (the pdot engine covers
-            # sum-kind chains only) — cache the two plan classes apart.
-            for_minmax = method in ("min", "max")
-            cache_key = "gather_plan_mm" if for_minmax else "gather_plan"
-            gplan = _REJECTED
-            if plan_cache is not None:
-                gplan = plan_cache.get(cache_key, _REJECTED)
-            if gplan is _REJECTED:
-                gplan = plan_default(
-                    weights.indices, weights.weights,
-                    for_minmax=for_minmax,
-                )
-                if plan_cache is not None:
-                    plan_cache[cache_key] = gplan
-            if gplan is not None:
-                out = apply_windowed_gather(
-                    source2d.astype(np.float32, copy=False),
-                    weights.indices,
-                    weights.weights,
-                    method,
-                    has_nan=has_nan,
-                    plan=gplan,
-                )
-                if out is not None:
-                    return out.T.astype(source2d.dtype).reshape(
-                        leading + (target_size,)
-                    )
-
-    smethod, s_has_nan = _select_method(reduction, source2d)
-    if smethod is not None:
-        from xugrid_tpu.regrid.select_apply import (
-            apply_windowed_select,
-            plan_gather_select,
-        )
-
-        splan = _REJECTED
-        if plan_cache is not None:
-            splan = plan_cache.get("select_plan", _REJECTED)
-        if splan is _REJECTED:
-            splan = plan_gather_select(weights.indices, weights.weights)
-            if plan_cache is not None:
-                plan_cache["select_plan"] = splan
-        if splan is not None:
-            out = apply_windowed_select(
-                source2d.astype(np.float32, copy=False),
-                weights.indices,
-                weights.weights,
-                smethod,
-                has_nan=s_has_nan,
-                plan=splan,
-            )
-            if out is not None:
-                return out.T.astype(source2d.dtype).reshape(
-                    leading + (target_size,)
-                )
 
     n_extra = source2d.shape[0]
     E = _pad_minor(n_extra)

@@ -41,7 +41,6 @@ class NetworkGridder(BaseRegridder):
         self._target = setup_grid(target)
         self._weights = None
         self._padded = None
-        self._plan_cache = {}
         self._compute_weights(self._source, self._target, relative=False)
         self._setup_regrid(method)
 
@@ -57,7 +56,6 @@ class NetworkGridder(BaseRegridder):
             )
         self._weights = weights
         self._padded = None
-        self._plan_cache = {}
 
     @classmethod
     def _weights_from_dataset(cls, dataset) -> MatrixCSR:
@@ -74,7 +72,6 @@ class NetworkGridder(BaseRegridder):
             n=target.size, m=source.size,
         )
         self._padded = None
-        self._plan_cache = {}
 
     @classmethod
     def from_weights(cls, weights, target, method: Union[str, Callable] = "mean"):
@@ -83,7 +80,6 @@ class NetworkGridder(BaseRegridder):
         instance = cls.__new__(cls)
         instance._weights = cls._weights_from_dataset(weights)
         instance._padded = None
-        instance._plan_cache = {}
         instance._target = _convert_target(setup_grid(target))
         instance._source = Network1d(Ugrid1d.from_dataset(weights, "__source"))
         instance._setup_regrid(method)

@@ -6,7 +6,7 @@ Each reduction maps a padded neighbor window to one value per target:
 ``value = NaN, weight = 0``.  NaN/zero-weight semantics match the
 reference's scalar numba kernels exactly (xugrid/regrid/reduce.py:16-272)
 — but where the reference runs a serial loop per target row, these run
-as dense ops over the whole (n_target, w_max) window on the VPU.
+as dense ops over the whole (n_target, w_max) window on the device.
 
 The serial in-place partition selection of the reference's percentile
 (reduce.py:161-203, nanpercentile.py) becomes a sort along the trailing

@@ -3,7 +3,7 @@ Regridders: map data between unstructured and structured topologies.
 
 Parity: xugrid/regrid/regridder.py:99-659 (CentroidLocatorRegridder,
 OverlapRegridder, RelativeOverlapRegridder, BarycentricInterpolator,
-weight serialization).  TPU-first differences:
+weight serialization).  Differences:
 
 * the apply path is a jitted gather + vectorized window reduction
   (regrid/apply.py) instead of a numba prange CSR loop;
@@ -72,7 +72,6 @@ class BaseRegridder(abc.ABC):
         self._target = setup_grid(target)
         self._weights = None
         self._padded = None
-        self._plan_cache = {}
         self._compute_weights(self._source, self._target, tolerance)
 
     @property
@@ -164,13 +163,12 @@ class BaseRegridder(abc.ABC):
         source2d = source.reshape((-1, source.shape[-1]))
         n_extra = source2d.shape[0]
         # Out-of-core chunking over the extra (time/layer) dims: bound
-        # the device working set so stacks larger than HBM stream
+        # the device working set so stacks larger than device memory stream
         # through in slabs.  The analog of the reference's dask
         # map_blocks path (xugrid/regrid/regridder.py:167-186), with the
         # UGRID dim likewise kept whole per chunk.
         per_slice = 4 * (source_grid.size + self._target.size)
         rows = max(int(_apply_chunk_bytes() // max(per_slice, 1)), 1)
-        plan_cache = getattr(self, "_plan_cache", None)
         if n_extra > rows:
             out = np.concatenate(
                 [
@@ -179,7 +177,6 @@ class BaseRegridder(abc.ABC):
                         source2d[i : i + rows],
                         self._reduction,
                         self._target.size,
-                        plan_cache=plan_cache,
                     )
                     for i in range(0, n_extra, rows)
                 ]
@@ -190,7 +187,6 @@ class BaseRegridder(abc.ABC):
                 source2d,
                 self._reduction,
                 self._target.size,
-                plan_cache=plan_cache,
             )
         return out.reshape(first_dims_shape + self._target.shape)
 
@@ -330,7 +326,6 @@ class BaseRegridder(abc.ABC):
         instance = cls.__new__(cls)
         instance._weights = cls._weights_from_dataset(weights)
         instance._padded = None
-        instance._plan_cache = {}
         instance._target = setup_grid(target)
         unstructured = (
             weights["__source_type"].attrs["type"] == "UnstructuredGrid2d"
@@ -387,7 +382,6 @@ class CentroidLocatorRegridder(BaseRegridder):
             n=target.size, m=source.size,
         )
         self._padded = None
-        self._plan_cache = {}
 
     def _regrid_array(self, source):
         source_grid = self._source
@@ -425,7 +419,6 @@ class CentroidLocatorRegridder(BaseRegridder):
             )
         self._weights = weights
         self._padded = None
-        self._plan_cache = {}
 
     @classmethod
     def _weights_from_dataset(cls, dataset) -> MatrixCOO:
@@ -443,7 +436,6 @@ class BaseOverlapRegridder(BaseRegridder, abc.ABC):
             n=target.size, m=source.size,
         )
         self._padded = None
-        self._plan_cache = {}
 
     @property
     def weights(self):
@@ -457,7 +449,6 @@ class BaseOverlapRegridder(BaseRegridder, abc.ABC):
             )
         self._weights = weights
         self._padded = None
-        self._plan_cache = {}
 
     @classmethod
     def _weights_from_dataset(cls, dataset) -> MatrixCSR:
@@ -555,7 +546,6 @@ class BarycentricInterpolator(BaseRegridder):
             n=target.size, m=source.size,
         )
         self._padded = None
-        self._plan_cache = {}
 
     @property
     def weights(self):
@@ -569,7 +559,6 @@ class BarycentricInterpolator(BaseRegridder):
             )
         self._weights = weights
         self._padded = None
-        self._plan_cache = {}
 
     @classmethod
     def from_weights(cls, weights, target):

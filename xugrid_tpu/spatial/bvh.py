@@ -1,12 +1,12 @@
 """
 Flat bounding-volume hierarchy (BVH) over 2D primitives.
 
-This is the TPU-native replacement for the reference's numba_celltree
+This is the JAX replacement for the reference's numba_celltree
 (SURVEY.md §2.9): construction happens once on the host (numpy — Morton
 sort + complete-tree reduction, O(n log n)); all queries run as batched,
 stack-free jitted JAX kernels (see spatial/queries.py) using skip-link
 (threaded) traversal, which maps onto ``lax.while_loop`` without any
-per-lane stack.
+per-query stack.
 
 Layout
 ------

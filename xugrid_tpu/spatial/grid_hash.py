@@ -1,11 +1,10 @@
 """
 Uniform grid-hash spatial index: the candidate-join engine.
 
-BVH traversal is irregular, data-dependent work — exactly what TPUs (and
-XLA's gather lowering) dislike; profiling showed the frontier-descent
-candidate join dominated weight builds at the 1M-face scale.  The
-grid-hash splits the problem the TPU-native way (SURVEY.md §7 "grid-hash
-hybrid index"):
+BVH traversal is irregular, data-dependent work; profiling showed the
+frontier-descent candidate join dominated weight builds at the 1M-face
+scale.  The grid-hash splits the problem between host and device
+(SURVEY.md §7 "grid-hash hybrid index"):
 
 * **host (numpy, C-speed)**: bin primitives into a uniform grid sized to
   ~2 primitives/cell; candidate generation is pure vectorized index

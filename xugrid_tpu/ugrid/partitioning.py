@@ -9,7 +9,7 @@ Two halves:
   with weighted balanced splits.  SFC parts are contiguous and balanced,
   cheap to compute at any scale, deterministic, and map directly onto
   device sharding (the same ordering is reused to lay faces out across
-  TPU devices; see xugrid_tpu.parallel).
+  devices; see xugrid_tpu.parallel).
 
 * ``merge_partitions`` and helpers: reassemble partitioned topologies
   plus their data (reference: xugrid/ugrid/partitioning.py:81-414),

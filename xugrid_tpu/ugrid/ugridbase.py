@@ -722,7 +722,7 @@ class AbstractUgrid(abc.ABC):
     def locate_nearest_node(self, points: FloatArray, max_distance: float = np.inf):
         """Nearest grid node per point; -1 when beyond max_distance.
 
-        Large batches run the MXU distance-matmul kernel on device;
+        Large batches run the brute-force distance kernel on device;
         small ones the cached host KDTree (spatial/nearest.py)."""
         from xugrid_tpu.spatial.nearest import nearest_points
 

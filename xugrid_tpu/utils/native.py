@@ -1,9 +1,10 @@
 """
 ctypes bindings for the native host kernels (csrc/host_kernels.cpp).
 
-The shared library is compiled on demand with g++ into a cache
-directory; every entry point has a pure-numpy fallback so the framework
-works without a toolchain.
+The shared library is compiled on demand with g++ into
+``<repo>/.native_build`` (``XUGRID_TPU_BUILD_DIR`` overrides); every
+entry point has a pure-numpy fallback so the framework works without a
+toolchain.
 """
 
 from __future__ import annotations
@@ -21,9 +22,7 @@ _TRIED = False
 _REPO_ROOT = Path(__file__).resolve().parent.parent.parent
 _SOURCE = _REPO_ROOT / "csrc" / "host_kernels.cpp"
 _BUILD_DIR = Path(
-    os.environ.get(
-        "XUGRID_TPU_BUILD_DIR", Path.home() / ".cache" / "xugrid_tpu"
-    )
+    os.environ.get("XUGRID_TPU_BUILD_DIR", _REPO_ROOT / ".native_build")
 )
 
 

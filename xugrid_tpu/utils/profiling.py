@@ -2,7 +2,7 @@
 Tracing and per-kernel cost accounting.
 
 The reference has no observability at all (SURVEY.md §5 "green-field");
-this module provides the two tools the TPU build needs:
+this module provides two tools:
 
 * ``trace(logdir)``: context manager around the JAX profiler, producing
   TensorBoard-compatible device traces;

@@ -2,7 +2,7 @@
 Grouped / windowed operations for the xdata layer: GroupBy, Rolling,
 Coarsen, Weighted, and Resample objects mirroring the xarray API
 surface the reference's users exercise (reductions, iteration, map).
-Host-side numpy — these are analysis conveniences, not the TPU compute
+Host-side numpy — these are analysis conveniences, not the device compute
 path.
 """
 
